@@ -1,4 +1,4 @@
-"""Measured noise study at production parameters (VERDICT r1, missing #2).
+"""Measured noise study at production parameters.
 
 Measures decrypt-phase error distributions on the device at PARAM_OPT:
 

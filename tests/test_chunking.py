@@ -1,4 +1,4 @@
-"""Chunk-policy tests (round-4 VERDICT #7 / ADVICE #1).
+"""Chunk-policy tests.
 
 The old `_chunk_size` required an exact divisor <= target, so a batch with
 no small divisor (a prime byte count, or 37 CTR blocks) degenerated to
@@ -32,7 +32,7 @@ def test_chunk_size_balanced(b, target, want_chunk, want_n):
 
 
 def test_ctr_keystream_dispatch_count(monkeypatch):
-    """ctr_keystream(n_blocks=37) must dispatch <=2 AES chunks (VERDICT #7)
+    """ctr_keystream(n_blocks=37) must dispatch <=2 AES chunks
     and reassemble the batch exactly.  The AES program is stubbed (identity
     over the state) so this tests ONLY the chunk/pad/slice driver logic —
     the full-crypto equivalence lives in

@@ -1,5 +1,5 @@
 """CSPRNG validation: RFC 8439 known answer, native/numpy agreement,
-statistical smoke, and client keygen integration (VERDICT r1, missing #3)."""
+statistical smoke, and client keygen integration."""
 
 import numpy as np
 import pytest

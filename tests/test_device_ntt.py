@@ -71,7 +71,8 @@ def test_u64_to_residues():
 
 
 def test_mac_mxu_matches_golden():
-    """MXU limb-matmul MACs == elementwise golden pointwise_mac."""
+    """The limb MACs (mac_batched, mac_shared, mac_rows) == the elementwise
+    golden pointwise_mac."""
     n = 128
     plan = ntt.make_plan(n)
     P = plan.n_primes
@@ -97,3 +98,17 @@ def test_mac_mxu_matches_golden():
         plan, jnp.asarray(dhat[:, :, 0]), jnp.asarray(ghat[:, None, 0])))
     for k, p in enumerate(plan.primes):
         assert np.array_equal(got_s[k] % p, want_s[k] % p), f"prime {p}"
+
+    # mac_rows: the blind-rotate layout — dhat as two int8 limbs, the key
+    # as one [P, R*2J, N] row slice (row r*2J + j: lo limb j < J, hi j >= J)
+    from tfhe_aes_tpu.ops import modular
+    d0 = dhat[:, :, 0]                                   # [P, B, R, N]
+    g0 = ghat[:, 0]                                      # [P, R, J, N]
+    dl, dh = modular.to_balanced_limbs2(jnp.asarray(d0))
+    gl, gh = modular.to_balanced_limbs2(jnp.asarray(g0))
+    g_rows = jnp.concatenate([gl, gh], axis=2).reshape(P, R * 2 * J, n)
+    got_r = np.asarray(ntt.mac_rows(plan, dl, dh, g_rows, J))
+    for k, p in enumerate(plan.primes):
+        assert np.array_equal(got_r[k] % p, want_s[k] % p), f"prime {p}"
+        assert np.abs(got_r[k]).max() <= p // 2
+

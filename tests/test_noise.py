@@ -1,4 +1,4 @@
-"""Noise-budget audit wired into CI (VERDICT round 1, missing #2).
+"""Noise-budget audit wired into CI.
 
 The audit executes the real circuits (utils/noise.py) and asserts the
 reference's <=5-leveled-additions invariant (README.md:176-180).  A
@@ -38,11 +38,11 @@ def test_audit_catches_violation():
 
 
 def test_measured_wopbs_noise_within_budget():
-    """Empirical phase-error check (VERDICT r1 #4): the fresh many-LUT
+    """Empirical phase-error check: the fresh many-LUT
     WoPBS outputs' measured noise must sit far below the decryption
     threshold with the `max_noise_level` headroom — the runtime complement
     of the static level audit.  (The production-parameter study runs on
-    the TPU: scripts/noise_study.py -> NOISE_REPORT.md.)"""
+    the device: scripts/noise_study.py -> NOISE_REPORT.md.)"""
     import numpy as np
     import jax.numpy as jnp
     from tfhe_aes_tpu.client.client import Client

@@ -1,4 +1,4 @@
-"""Runtime noise-assert sanitizer (utils/noise_asserts) — VERDICT r4 #6.
+"""Runtime noise-assert sanitizer (utils/noise_asserts).
 
 The live complement of the mock-based schedule audit (utils/noise.py):
 phase errors of REAL ciphertexts are measured against the secret key at

@@ -1,7 +1,9 @@
 """Analytic noise certification (utils/noise_model) vs measured reality.
 
-The measured constants are pinned from NOISE_REPORT.md (TPU v5e, 4096
-samples each, scripts/noise_study.py).  The analytic model must
+The measured constants are pinned from NOISE_REPORT.md and
+NOISE_REPORT_TPU.md (4096 samples each, scripts/noise_study.py; recorded
+before the move to the GPU — the noise is a property of the exact integer
+arithmetic, not of the device).  The analytic model must
   (a) never predict BELOW measurement (it is built to be conservative), and
   (b) stay within 1.5 bits of it (so the certificate is about the real
       pipeline, not a vacuous overestimate),

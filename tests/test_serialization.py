@@ -51,3 +51,36 @@ def test_formats_agree(tmp_path, toy_keys):
     _, dk1 = serialization.load_keys(p1)
     _, dk2 = serialization.load_keys(p2)
     _assert_same(dk1, dk2)
+
+
+def test_slim_device_keys(toy_keys):
+    """DeviceKeys carries only what the XLA path reads, and the BSK has one
+    row slice per LWE coefficient (no step padding)."""
+    import dataclasses
+    from tfhe_aes_tpu.ops.keys import DeviceKeys
+    sk, dkeys = toy_keys
+    p = sk.params
+    assert {f.name for f in dataclasses.fields(DeviceKeys)} == {
+        "params", "plan", "rplan", "bsk_limbs", "ksk_limbs", "pfpksk_limbs",
+        "fwd_limbs", "inv_crt_limbs", "rfwd_limbs", "rinv_crt_limbs",
+        "rot_table"}
+    kp1 = p.glwe_dimension + 1
+    assert np.shape(dkeys.bsk_limbs) == (
+        p.lwe_dimension, kp1 * p.pbs_level * 2 * kp1,
+        dkeys.rplan.n_primes * p.polynomial_size)
+
+
+def test_stale_bsk_rows_rejected(tmp_path, toy_keys):
+    """A cache whose BSK has another step count (e.g. an older padded
+    layout) is refused, not silently run."""
+    sk, dkeys = toy_keys
+    bsk = np.asarray(dkeys.bsk_limbs)
+    padded = np.concatenate([bsk, np.zeros((3,) + bsk.shape[1:], bsk.dtype)])
+    path = tmp_path / "stale.npz"
+    serialization.save_keys(path, sk, dkeys)
+    z = dict(np.load(path))
+    z["bsk_limbs"] = padded
+    np.savez(path, **z)
+    with pytest.raises(ValueError, match="stale key cache"):
+        serialization.load_keys(path)
+

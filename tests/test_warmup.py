@@ -3,8 +3,9 @@
 The warm-up (utils/warmup.py) only works if ops.keys.device_keys_shapes
 reports EXACTLY the avals real packed keys have — a silent drift would
 recompile every production program after the warm-up already "paid" for
-them (the round-5 cold-start root causes: a plan-identity race, then
-first-execution program load).  These tests pin both halves on PARAM_TOY.
+them (a plan-identity race did exactly that once).  These tests pin the
+shapes and the plan identity on PARAM_TOY, and that a failed warm-up
+compile stops the run.
 """
 
 import dataclasses
@@ -36,7 +37,7 @@ def test_device_keys_shapes_match_packed_zero_keys():
 def test_zero_keys_plan_identity_is_thread_race_free():
     # ops.ntt.make_plan must return the SAME object under concurrent first
     # calls (it is an identity-hashed jit static) — regression for the
-    # round-5 cold-start bug where keygen raced the warm-up thread.
+    # cold-start bug where keygen raced the warm-up thread.
     import threading
     from tfhe_aes_tpu.ops import ntt
     ntt._make_plan.cache_clear()
@@ -55,11 +56,21 @@ def test_zero_keys_plan_identity_is_thread_race_free():
     assert all(o is out[0] for o in out)
 
 
+def test_failed_warmup_compile_raises_on_join():
+    """A program that cannot compile from shapes stops the run at join()
+    with the compiler's error, instead of being recorded and ignored."""
+    import jax.numpy as jnp
+    bad = jax.jit(lambda x: x @ x)              # [2, 3] @ [2, 3]: refused
+    w = warmup.Warmup([("bad", bad, (jnp.zeros((2, 3)),))], {})
+    with pytest.raises(RuntimeError, match="warm-up compile of bad") as e:
+        w.join()
+    assert e.value.__cause__ is not None
+    assert "bad" not in w.report and "bad" not in w.compiled
+
+
 @pytest.mark.slow
 def test_precompile_end_to_end_toy():
-    rep = {}
-    th = warmup.precompile(PARAM_TOY, 2, report=rep)
-    th.join()
-    assert "err" not in rep, rep
-    assert not [k for k in rep if k.endswith("_err")], rep
-    assert "keyexp_wopbs" in rep and "ctr_step" in rep, rep
+    w = warmup.precompile(PARAM_TOY, 2)
+    w.join()
+    assert "keyexp_wopbs" in w.report and "ctr_step" in w.report, w.report
+    assert set(w.compiled) == set(w.report)

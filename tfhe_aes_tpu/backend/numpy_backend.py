@@ -2,7 +2,7 @@
 
 This module is the correctness anchor of the framework:
 
-  * it implements every cryptographic primitive the TPU kernels provide —
+  * it implements every cryptographic primitive the device ops provide —
     LWE/GLWE/GGSW encryption, gadget decomposition, external product, CMux,
     blind rotation, sample extraction, LWE keyswitch, private functional
     packing keyswitch, circuit bootstrap, bit extraction, vertical packing —
@@ -10,7 +10,7 @@ This module is the correctness anchor of the framework:
     mod 2^64, matching the reference's native ciphertext modulus,
     /root/reference/src/client/client.rs:55);
   * it is used directly for key generation (host side) and as the golden
-    oracle in the unit tests that validate the JAX/Pallas device kernels.
+    oracle in the unit tests that validate the JAX device ops.
 
 Primitive semantics mirror the tfhe-rs surface the reference consumes
 (SURVEY.md section 2b); internal sign/ordering conventions are our own and are

@@ -1,18 +1,18 @@
-"""Batched blind rotation — the TPU hot loop.
+"""Batched blind rotation — the hot loop.
 
 Computes, for a batch of LWE ciphertexts, the classic TFHE accumulator loop
 (acc = X^-b~ * v;  acc = CMux(BSK_i, acc, X^a~_i * acc)) with every step's
-external product expressed as int8 MXU matmuls (ops/ntt.py).  The batch axis
+external product expressed as int8 x int8 -> int32 matmuls (ops/ntt.py).  The batch axis
 is the whole design: the reference bootstraps the 128 state bits of an AES
 round one at a time on CPU threads (SURVEY.md 3.2); here they ride one fused
 batch through the n sequential CMux steps.
 
-Two TPU-specific reformulations (both exact-by-construction; decryption is
-verified bit-exact against the plaintext oracle):
+Two reformulations (both exact-by-construction; decryption is verified
+bit-exact against the plaintext oracle):
 
 1. Rotation as post-MAC NTT twiddles.  Instead of decomposing the rotated
-   difference  G^-1(X^a * acc - acc)  — whose per-element coefficient-domain
-   gather dominated the whole bootstrap on TPU — each step computes
+   difference  G^-1(X^a * acc - acc)  — a per-element coefficient-domain
+   gather over the whole batch on every step — each step computes
 
        acc += (X^a - 1) * (G^-1(acc) (x) BSK_i)
 
@@ -25,18 +25,12 @@ verified bit-exact against the plaintext oracle):
    already budgets for (its tfhe-fft c64 path, many_wopbs.rs:263) and which
    our exact NTT eliminates.
 
-2. On TPU the whole CMux step runs as ONE fused Pallas kernel
-   (ops/pallas_blind_rotate.py) — decompose, NTT dots, MAC, twiddle, INTT,
-   CRT and the accumulate never leave VMEM.  Elsewhere (CPU tests, virtual
-   multi-chip meshes) an equivalent XLA op pipeline runs the same math on
-   the same key layout.
-
-3. The accumulator lives mod q' = 2^48 (ops/keys.make_rotate_plan), not
+2. The accumulator lives mod q' = 2^48 (ops/keys.make_rotate_plan), not
    mod 2^64.  The gadget decomposition reads only the top base*level <= 40
    bits of the accumulator, so the mod-q' loop is lossless for it — and
    the exact-CRT range shrinks from 2^84.6 to 2^68.6, which 5 big primes
-   cover instead of 6 (utils/crt.rotate_primes): 1/6 less MXU work and
-   ~35% less VPU chain work per step (the CRT byte chains go 8x6 -> 6x5).
+   cover instead of 6 (utils/crt.rotate_primes): 1/6 fewer NTT matmuls and
+   ~35% less elementwise CRT work per step (the byte chains go 8x6 -> 6x5).
    Noise accounting for the mod-switch artifacts (2^64 scale, against the
    GGSW-consumption budget sigma <= ~2^39.5 — vertical packing amplifies
    GGSW noise by cbs-digit x sqrt(8N/3) ~ 2^19 before the 2^62 decrypt
@@ -58,31 +52,20 @@ verified bit-exact against the plaintext oracle):
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from ..params import ParamSet
 from . import decompose, lwe, modular, ntt
-from . import pallas_blind_rotate as pbr
 
 U64 = jnp.uint64
-
-
-def _pallas_mode() -> str:
-    """'pallas' | 'interpret' | 'xla' (env TFHE_AES_TPU_BLIND_ROTATE)."""
-    force = os.environ.get("TFHE_AES_TPU_BLIND_ROTATE", "auto")
-    if force in ("pallas", "interpret", "xla"):
-        return force
-    return "xla" if jax.default_backend() == "cpu" else "pallas"
 
 
 def external_product_ntt(plan: ntt.NttPlan, diff_u64: jnp.ndarray,
                          ggsw_ntt_i32: jnp.ndarray, base_log: int,
                          levels: int, fwd_limbs, inv_crt_limbs
                          ) -> jnp.ndarray:
-    """GGSW (NTT residues) x GLWE-delta (u64) -> GLWE (u64), on the MXU.
+    """GGSW (NTT residues) x GLWE-delta (u64) -> GLWE (u64).
 
     diff_u64: [B, F..., k+1, N] against per-batch GGSW
     ggsw_ntt_i32 [P, B, R, k+1, N] (vertical packing: each byte's selector
@@ -106,8 +89,7 @@ def external_product_ntt(plan: ntt.NttPlan, diff_u64: jnp.ndarray,
 
 def blind_rotate(plan: ntt.NttPlan, params: ParamSet, bsk_limbs: jnp.ndarray,
                  lwe_u64: jnp.ndarray, test_glwe_u64: jnp.ndarray,
-                 fwd_limbs: jnp.ndarray, fwd_full: jnp.ndarray,
-                 inv_crt_limbs: jnp.ndarray, inv_crt_full: jnp.ndarray,
+                 fwd_limbs: jnp.ndarray, inv_crt_limbs: jnp.ndarray,
                  rot_table: jnp.ndarray) -> jnp.ndarray:
     """lwe_u64: [B, n+1]; test_glwe_u64: [k+1, N] or [B, k+1, N].
 
@@ -115,12 +97,6 @@ def blind_rotate(plan: ntt.NttPlan, params: ParamSet, bsk_limbs: jnp.ndarray,
     the rotate plan (plan.q_bits = pbs_base_log * pbs_level); the loop runs
     mod 2^q_bits and the result is scaled back to the 2^64 torus.
     """
-    mode = _pallas_mode()
-    if mode != "xla":
-        return pbr.blind_rotate_pallas(
-            plan, params, bsk_limbs, lwe_u64, test_glwe_u64, fwd_full,
-            inv_crt_full, rot_table, interpret=(mode == "interpret"))
-
     n_poly = params.polynomial_size
     two_n = 2 * n_poly
     kp1 = params.glwe_dimension + 1

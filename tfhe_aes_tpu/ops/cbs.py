@@ -30,8 +30,7 @@ def pbs_boolean(keys: DeviceKeys, lwe_small_u64: jnp.ndarray,
     test = jnp.zeros((p.glwe_dimension + 1, n), U64)
     test = test.at[-1, :].set(U64(0) - (U64(1) << U64(out_scale_log - 1)))
     acc = blind_rotate.blind_rotate(keys.rplan, p, keys.bsk_limbs, ct, test,
-                                    keys.rfwd_limbs, keys.fwd_full,
-                                    keys.rinv_crt_limbs, keys.inv_crt_full,
+                                    keys.rfwd_limbs, keys.rinv_crt_limbs,
                                     keys.rot_table)
     out = lwe.sample_extract0(acc)
     return out.at[..., -1].add(U64(1) << U64(out_scale_log - 1))
@@ -40,7 +39,7 @@ def pbs_boolean(keys: DeviceKeys, lwe_small_u64: jnp.ndarray,
 def pfpksk_apply_all(keys: DeviceKeys, big_lwe_u64: jnp.ndarray) -> jnp.ndarray:
     """Apply all k+1 packing keyswitches: [B, big+1] -> [B, k+1_u, k+1_j, N].
 
-    12-bit digits are split into two int8 limbs; two MXU matmuls against the
+    12-bit digits are split into two int8 limbs; two int8 matmuls against the
     pre-limbed key then recombine mod 2^64.
     """
     p = keys.params

@@ -1,4 +1,4 @@
-"""Batched LWE keyswitch (big -> small) as one int8 MXU matmul mod 2^64.
+"""Batched LWE keyswitch (big -> small) as one int8 matmul mod 2^64.
 
 The reference's extract-bits step costs one keyswitch per state bit
 (many_wopbs.rs:194-199 with 1-bit blocks, SURVEY.md 2b); batching every bit of

@@ -1,19 +1,19 @@
 """Device-side exact modular arithmetic for the RNS/NTT pipeline.
 
-Everything is engineered so that TPU-native dtypes suffice:
+Everything is engineered so that 32-bit-and-narrower dtypes suffice:
 
   * residues mod p are kept *balanced* (in [-(p-1)/2, (p-1)/2]) so they fit
-    int16 storage and two signed 8-bit limbs — int8 is the MXU operand type;
+    int16 storage and two signed 8-bit limbs — the operands of the int8 x
+    int8 -> int32 matrix products;
   * p < 2^15.5 (see utils/crt.py) so any product of two balanced residues is
-    < 2^30 in magnitude and fits a signed int32 on the VPU;
+    < 2^30 in magnitude and fits a signed int32;
   * reduction is a Barrett step with an f32 reciprocal: the quotient estimate
     is off by at most 1, fixed by conditional subtracts — exact, no 64-bit
     arithmetic anywhere.
 
 This replaces the reference's approximate c64 FFT arithmetic
-(/root/reference/src/server/sbox/many_wopbs.rs:22,64) with exact integer math:
-mandatory on TPU, where f64 is emulated and f32 lacks the mantissa for a
-2^-64 failure-rate torus.
+(the reference's src/server/sbox/many_wopbs.rs:22,64) with exact integer math,
+so every device result is bit-exact against the numpy golden model.
 """
 
 from __future__ import annotations

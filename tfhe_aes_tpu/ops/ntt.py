@@ -1,17 +1,18 @@
-"""Negacyclic NTT on TPU: exact u64 polynomial products via RNS + int8 matmuls.
+"""Negacyclic NTT: exact u64 polynomial products via RNS + int8 matmuls.
 
 Replaces the reference's tfhe-fft f64 FFT (many_wopbs.rs:64,263) with an exact
-residue-number-system transform engineered for the MXU:
+residue-number-system transform built from integer matrix products:
 
   * the transform itself is a matmul by precomputed twiddle matrices, staged
-    as signed 8-bit limbs -> int8 x int8 -> int32 dots (native MXU op);
+    as signed 8-bit limbs -> int8 x int8 -> int32 dots;
   * per-prime reductions are f32-Barrett steps (ops/modular.py);
   * the inverse transform folds n^-1 and the explicit-CRT premultiplier c_k
     into the matrices, so CRT reconstruction mod 2^64 needs only u64
     multiply-adds by per-prime constants.
 
-Matmul NTT is O(N^2) but lives entirely on the 128x128 systolic array with
-N = 512 operands — the right trade on TPU (SURVEY.md section 7, item 2).
+Matmul NTT is O(N^2), but at N = 512 it is dense int8 matrix work that the
+accelerator's integer matrix units run, instead of a butterfly network of
+64-bit modular multiplies (SURVEY.md section 7, item 2).
 """
 
 from __future__ import annotations
@@ -87,9 +88,9 @@ def _host_rot_table(primes, n: int) -> np.ndarray:
 
     In the negacyclic NTT (evaluation at x_j = psi^(2j+1)) multiplication by
     the monomial X^a is the pointwise multiply by x_j^a — so a blind-rotate
-    CMux rotation becomes one row-gather from this table plus a VPU multiply,
-    instead of a per-element coefficient-domain gather (the op that dominated
-    the un-twiddled bootstrap on TPU).
+    CMux rotation becomes one row-gather from this table plus an elementwise
+    multiply, instead of a per-element coefficient-domain gather over the
+    whole batch.
     """
     j = np.arange(n, dtype=np.int64)
     a = np.arange(2 * n, dtype=np.int64)[:, None]
@@ -249,26 +250,13 @@ def mac_shared(plan: NttPlan, dhat: jnp.ndarray,
     """out[p,m,j,n] = sum_r dhat[p,m,r,n] * ghat[p,r,j,n] (balanced mod p_k).
 
     dhat: balanced int32 [P, M, R, N]; ghat: balanced int [P, R, J, N]
-    shared by every batch row m (the blind-rotate case: one BSK entry, many
-    accumulators).  The contraction runs on the MXU as four int8-limb
-    dot_generals batched over (prime, n) — this replaces the elementwise VPU
-    product storm that would otherwise dominate the whole bootstrap.
+    shared by every batch row m (keygen's mask products: one secret key,
+    many masks).  The elementwise limb MAC of mac_batched with one batch
+    element: R = k is 2-4 here, and XLA:GPU (JAX 0.9.0, H100) computes the
+    equivalent s8 dot_general batched over (prime, n) wrongly at R = 2
+    while the CPU is right (PERF.md, Findings).
     """
-    dl, dh = modular.to_balanced_limbs2(jnp.moveaxis(dhat, -1, 1))  # [P,N,M,R]
-    gl, gh = modular.to_balanced_limbs2(
-        jnp.moveaxis(ghat.astype(I32), -1, 1))                      # [P,N,R,J]
-    j = ghat.shape[-2]
-    gcat = jnp.concatenate([gl, gh], axis=-1)       # [P,N,R,2J]: K and J pad
-    dims = (((3,), (2,)), ((0, 1), (0, 1)))         # to the same MXU tile, so
-                                                    # 2 dots do the work of 4
-    def dot(a, b):
-        return jax.lax.dot_general(a, b, dims, preferred_element_type=I32)
-
-    s_lo = dot(dl, gcat)                            # [P,N,M,2J]
-    s_hi = dot(dh, gcat)
-    out = _combine_limb_dots(plan, s_lo[..., :j],
-                             s_lo[..., j:] + s_hi[..., :j], s_hi[..., j:])
-    return jnp.moveaxis(out, 1, -1)                                 # [P,M,J,N]
+    return mac_batched(plan, dhat[:, None], ghat[:, None])[:, 0]
 
 
 def mac_batched(plan: NttPlan, dhat: jnp.ndarray,
@@ -280,12 +268,11 @@ def mac_batched(plan: NttPlan, dhat: jnp.ndarray,
     dhat [P, B, F, R, N]; ghat [P, B, R, J, N]; both balanced.
 
     R = (k+1)*cbs_level and J = k+1 are tiny (5 and 5 at PARAM_OPT), so
-    this is an unrolled elementwise limb MAC with N kept minormost —
-    perfectly (8,128)-tiled.  The earlier dot_general formulation batched
-    over (P,B,N) and let XLA lay the (F, 2J) axes minor: the VP
-    intermediates got (8,128)-padded 8.5x (a 12 GB HLO temp at 32-block
-    CTR batches — the whole-program HBM OOM) without ever being
-    MXU-shaped work in the first place (K=R=5).
+    this is an unrolled elementwise limb MAC with N kept minormost.  A
+    dot_general batched over (P,B,N) would contract K=R=5, far too small to
+    be matrix-unit work, and lets XLA lay the (F, 2J) axes minor, padding
+    the vertical-packing intermediates (an earlier layout built a 12 GB
+    temporary at 32-block CTR batches this way).
     Limb bounds: |d_limb|, |g_limb| <= 128 -> per-product < 2^14, <= 2*R
     summed terms < 2^17.6 — far inside _combine_limb_dots' 2^20 budget.
     """
@@ -325,124 +312,9 @@ def pointwise_mac(plan: NttPlan, dhat: jnp.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Coefficient-major ("cm") pipeline: the blind-rotate hot loop.
-#
-# Working layout [N, B, ...]: the polynomial-coefficient axis LEADS, so the
-# forward/inverse transforms are dot_generals contracting that axis directly
-# and the NTT-domain MAC is a batched matmul over (prime, n) — no moveaxis
-# anywhere in the loop.  The [.., M, R, N] <-> [.., N, M, R] relayouts of the
-# generic path materialize minor-to-major transposes of hundreds of MB per
-# CMux step, which dominated wall time and blew HBM at batch >= 2K bits.
+# Blind-rotate hot-loop helpers (ops/blind_rotate.py): the step's NTT-domain
+# MAC against one BSK row slice, the twiddle rotation, the INTT + CRT.
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def inv_crt_full_host(plan: NttPlan) -> np.ndarray:
-    """Block matrices [P, 2N, 2N] int8 for the one-dot-per-prime INTT.
-
-    x @ M orientation: row blocks = input limbs (the 2^8 scale of the hi limb
-    is folded into the matrix), column blocks = output 8-bit limbs of the
-    balanced result; built from plan.inv_crt_limbs [P, in, out, N, N].
-    """
-    m = plan.inv_crt_limbs
-    top = np.concatenate([m[:, 0, 0], m[:, 0, 1]], axis=2)   # [P, N, 2N]
-    bot = np.concatenate([m[:, 1, 0], m[:, 1, 1]], axis=2)
-    return np.ascontiguousarray(np.concatenate([top, bot], axis=1))
-
-
-@functools.lru_cache(maxsize=None)
-def fwd_full_host(plan: NttPlan) -> np.ndarray:
-    """Forward digit-NTT matrices [P, N, 2N] int8, x @ M orientation.
-
-    Column blocks = the two output 8-bit limbs of the balanced residues
-    (single int8 input limb — gadget digits).  The operand layout of the
-    fused blind-rotate kernel's first MXU dot.
-    """
-    m = plan.fwd_limbs
-    return np.ascontiguousarray(np.concatenate([m[:, 0, 0], m[:, 0, 1]],
-                                               axis=2))
-
-
-def fwd_full_for(plan: NttPlan, pbs_base_log: int) -> np.ndarray:
-    """The fused kernel's forward digit-NTT operand for a given base:
-    [P, N, 2N] single-limb matrices for int8 digits, [P, 2N, 2N] block
-    matrices for wide (pbs_base_log > 8) digits."""
-    return fwd_full_wide_host(plan) if pbs_base_log > 8 else \
-        fwd_full_host(plan)
-
-
-@functools.lru_cache(maxsize=None)
-def fwd_full_wide_host(plan: NttPlan) -> np.ndarray:
-    """Block forward-NTT matrices [P, 2N, 2N] int8 for WIDE gadget digits.
-
-    Same x @ M orientation as inv_crt_full_host: row blocks = the two input
-    limbs of a digit in base 2^6 (|limb| <= 32; the 2^6 scale of the hi
-    limb is folded into the matrix), column blocks = output 8-bit limbs of
-    the balanced residues.  Used when pbs_base_log > 8 (e.g. PARAM_TPU's
-    12-bit digits), whose digits do not fit one int8 MXU operand.
-
-    Why base 2^6 inputs (not 2^8): the dot contracts 2N rows, so with
-    |limb| <= 32 each raw output plane stays <= 2N*32*128 = 2^22 and
-    lo + 256*hi <= 2^30.1 — int32-safe with the SAME single-barrett
-    recombine as the narrow path (8-bit input limbs would reach 2^31.6).
-    """
-    from . import modular
-    outs = []
-    for k, p in enumerate(plan.primes):
-        fwd, _ = crt.ntt_matrices(p, plan.n)
-        rows = []
-        for scale in (1, 64):
-            bal = modular.host_balanced((fwd * scale) % p, p)
-            lo, hi = np.moveaxis(modular.host_balanced_limbs2(bal), -1, 0)
-            rows.append(np.concatenate([lo, hi], axis=1))    # [N, 2N]
-        outs.append(np.concatenate(rows, axis=0))            # [2N, 2N]
-    return np.ascontiguousarray(np.stack(outs))
-
-
-@functools.lru_cache(maxsize=None)
-def fwd_cat_for(plan: NttPlan, pbs_base_log: int) -> np.ndarray:
-    """Prime-MERGED forward digit-NTT matrix [dn, 2*P*N] int8.
-
-    Column layout: cols [0, P*N) are the LO output limbs (prime-segmented,
-    segment k at k*N..(k+1)*N), cols [P*N, 2*P*N) the HI limbs — so the
-    fused kernel's single dot produces the whole merged-plane residue pair
-    with two STATIC aligned slices (no per-prime copy-out).  Input rows are
-    the gadget digits (prime-independent, which is why one dot serves all
-    primes): dn = N for int8 digits, 2N limb planes for wide digits
-    (fwd_full_wide_host row layout)."""
-    per = fwd_full_for(plan, pbs_base_log)               # [P, dn, 2N]
-    n = plan.n
-    lo = np.concatenate([per[k, :, :n] for k in range(plan.n_primes)], axis=1)
-    hi = np.concatenate([per[k, :, n:] for k in range(plan.n_primes)], axis=1)
-    return np.ascontiguousarray(np.concatenate([lo, hi], axis=1))
-
-
-@functools.lru_cache(maxsize=None)
-def fwd_cat3_host(plan: NttPlan) -> np.ndarray:
-    """Prime-merged forward-NTT matrix [3N, 2*P*N] int8 for 15-bit digits.
-
-    Input rows are THREE base-2^5 digit limbs (|limb| <= 16; scales 1, 32,
-    1024 folded into the row blocks), columns as fwd_cat_for (lo output
-    limbs of all primes, then hi).  Used by the fused vertical-packing
-    kernel (ops/pallas_vp.py) whose CBS digits are base-2^15
-    (cbs_base_log = 15 > the 12-bit ceiling of the 2-limb path).
-    Bound: the dot contracts 3N rows of |limb| <= 16 against int8 matrix
-    limbs: each output plane <= 3N*16*128 = 2^21.6, lo + 256*hi < 2^30 —
-    int32-safe with the single-barrett recombine."""
-    n = plan.n
-    los, his = [], []
-    for k, p in enumerate(plan.primes):
-        fwd, _ = crt.ntt_matrices(p, n)
-        rows_lo, rows_hi = [], []
-        for scale in (1, 32, 1024):
-            bal = modular.host_balanced((fwd * scale) % p, p)
-            lo, hi = np.moveaxis(modular.host_balanced_limbs2(bal), -1, 0)
-            rows_lo.append(lo)
-            rows_hi.append(hi)
-        los.append(np.concatenate(rows_lo, axis=0))      # [3N, N]
-        his.append(np.concatenate(rows_hi, axis=0))
-    return np.ascontiguousarray(
-        np.concatenate(los + his, axis=1))               # [3N, 2PN]
-
 
 @functools.lru_cache(maxsize=None)
 def rot_table_merged(plan: NttPlan) -> np.ndarray:
@@ -464,18 +336,25 @@ def mac_rows(plan: NttPlan, dl: jnp.ndarray, dh: jnp.ndarray,
 
     dl, dh: int8 [P, B, R, N] (dhat limbs); g_rows: int8 [P, R*2J, N]
     (bsk_limbs step slice: row r*2J + j, j < J lo / j >= J hi limb);
-    j_out = J = k+1.  Returns balanced int32 [P, B, J, N].  XLA fallback
-    path of the fused Pallas kernel — contraction over r batched over
-    (prime, n) via einsum/dot_general.
+    j_out = J = k+1.  Returns balanced int32 [P, B, J, N].
+
+    The contraction over r (R = 15 at PARAM_TPU, 25 at PARAM_OPT) is an
+    unrolled elementwise int32 MAC, not a dot_general: XLA:GPU (JAX 0.9.0,
+    H100) miscompiles the s8 x s8 -> s32 dot batched over (prime, n) at
+    R = 15 — wrong sums, while the CPU is right (PERF.md, Findings) — and
+    at so small a contraction the elementwise form is as fast.
+    Limb bounds: |d|, |g| <= 128 -> products < 2^14, R <= 25 terms
+    < 2^18.7 — inside _combine_limb_dots' 2^20 budget.
     """
     pcount, rr2j, n = g_rows.shape
-    g = g_rows.reshape(pcount, rr2j // (2 * j_out), 2 * j_out, n)
-
-    def mac(d):
-        return jnp.einsum("pbrn,prjn->pbjn", d, g,
-                          preferred_element_type=I32)
-
-    s_lo, s_hi = mac(dl), mac(dh)
+    g = g_rows.reshape(pcount, rr2j // (2 * j_out), 2 * j_out, n).astype(I32)
+    s_lo = s_hi = None
+    for r in range(g.shape[1]):
+        g_r = g[:, None, r]                             # [P, 1, 2J, N]
+        lo = dl[:, :, r, None, :].astype(I32) * g_r     # [P, B, 2J, N]
+        hi = dh[:, :, r, None, :].astype(I32) * g_r
+        s_lo = lo if s_lo is None else s_lo + lo
+        s_hi = hi if s_hi is None else s_hi + hi
     return _combine_limb_dots(plan, s_lo[..., :j_out, :],
                               s_lo[..., j_out:, :] + s_hi[..., :j_out, :],
                               s_hi[..., j_out:, :])

@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from ..params import ParamSet
-from . import blind_rotate, lwe, ntt
+from . import blind_rotate, lwe
 from .keys import DeviceKeys
 
 U64 = jnp.uint64
@@ -66,16 +65,6 @@ def vertical_packing(keys: DeviceKeys, ggsw_ntt: jnp.ndarray,
     acc = acc[:, :, 0]                                  # [B, L, k+1, N]
 
     # Blind rotation over low bits: bit j selects rotation X^(-2^j).
-    # On TPU (and for the production shapes: single-level CBS) the whole
-    # phase runs as the fused Pallas kernel, accumulator resident in VMEM
-    # across the steps (ops/pallas_vp.py — bit-identical to the XLA loop
-    # below, which remains the CPU/golden path).
-    mode = blind_rotate._pallas_mode()
-    if mode != "xla" and p.cbs_level == 1 and n_rot > 0:
-        from . import pallas_vp
-        acc = pallas_vp.vp_rotations_pallas(
-            keys, acc, ggsw_ntt[:n_rot], interpret=(mode == "interpret"))
-        return lwe.sample_extract0(acc)
     for j in range(n_rot):
         rot = lwe.neg_rotate_const(acc, 2 * n - (1 << j))
         diff = rot - acc

@@ -60,7 +60,7 @@ def _chunk_size(b: int, target: int) -> int:
     Callers pad the batch up to a chunk multiple (waste < one chunk)
     instead of requiring an exact divisor — the old divisor rule collapsed
     to chunk 1 on sizes with no small divisor (a prime byte count meant B
-    sequential one-element dispatches; round-4 ADVICE/VERDICT #7).
+    sequential one-element dispatches).
     """
     if b <= target:
         return b
@@ -83,9 +83,8 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: jnp.ndarray,
     ~2048 bits, PERF.md), but the packing-keyswitch / NTT-staging / vertical
     packing tail is chunked over at most `vp_chunk` bytes via lax.map: the
     VP working set ([B, L, C, k+1, N] u64 accumulators plus [P, B, L*C, R, N]
-    int32 external-product intermediates) otherwise grows ~linearly with B
-    and faulted the device above 32 CTR blocks (512 bytes) — the round-3
-    batch ceiling.  The reference's dyn-stack scratch discipline
+    int32 external-product intermediates) otherwise grows ~linearly with B.
+    The reference's dyn-stack scratch discipline
     (many_wopbs.rs:121-157) always fits for the same reason: it sizes the
     hot loop's scratch independently of how many inputs are queued.
     """

@@ -1,7 +1,7 @@
 """Device-mesh utilities: sharded FHE-AES CTR over JAX meshes.
 
 Parallelism model (SURVEY.md 2c): the reference's only axis is rayon threads
-over CTR blocks (main.rs:55-64).  TPU-natively that becomes:
+over CTR blocks (main.rs:55-64).  On a device mesh that becomes:
 
   * 'dp'  — CTR blocks, pure data parallel (no collectives);
   * 'mp'  — optional second axis over the 16 state bytes: each round's
@@ -46,7 +46,7 @@ def shard_keys(mesh: Mesh, keys: DeviceKeys,
     into per-device partial sums reduced with an all-reduce over 'mp',
     and per-device key memory drops by the mp factor (~700 MB of the
     ~1.2 GB total at production parameters, SURVEY.md 2b).  The BSK stays
-    replicated: the Pallas blind-rotate kernel consumes whole rows.
+    replicated: every blind-rotate step reads one whole BSK row slice.
     """
     rep = NamedSharding(mesh, P())
     row = NamedSharding(mesh, P("mp"))
@@ -67,18 +67,23 @@ def sharded_ctr_fn(mesh: Mesh, keys: DeviceKeys, n_blocks: int,
     """Build a jitted CTR keystream fn with the batch axis sharded over 'dp'
     (and optionally the byte axis over 'mp').
 
-    Returns fn(round_keys, enc_iv, lut_lsb, luts_rest)
+    Returns fn(keys, round_keys, enc_iv, lut_lsb, luts_rest)
       -> [n_blocks, 16, 8, big+1]
-    where the LUT stacks come from fhe_aes.add_scalar_luts (per-block
-    counter tables, sharded along 'dp' with the batch).
+    where `keys` is the DeviceKeys staged by shard_keys (passed here too:
+    its shardings become the keys argument's in_shardings) and the LUT
+    stacks come from fhe_aes.add_scalar_luts (per-block counter tables,
+    sharded along 'dp' with the batch).  The keys are an ARGUMENT, never
+    closed over: a closure would bake ~1 GB of key material into the
+    program as constants, which XLA then tries to constant-fold.
     """
     byte_spec = "mp" if shard_bytes else None
     state_spec = P("dp", byte_spec)
     rep = NamedSharding(mesh, P())
     dp = NamedSharding(mesh, P("dp"))
     dp1 = NamedSharding(mesh, P(None, "dp"))
+    key_shardings = jax.tree_util.tree_map(lambda a: a.sharding, keys)
 
-    def run(round_keys, enc_iv, lut_lsb, luts_rest):
+    def run(keys, round_keys, enc_iv, lut_lsb, luts_rest):
         state = jax.numpy.broadcast_to(enc_iv[None],
                                        (n_blocks,) + enc_iv.shape)
         # The ripple-add stays dp-only: it walks the 16 bytes sequentially
@@ -97,6 +102,6 @@ def sharded_ctr_fn(mesh: Mesh, keys: DeviceKeys, n_blocks: int,
 
     return jax.jit(
         run,
-        in_shardings=(rep, rep, dp, dp1),
+        in_shardings=(key_shardings, rep, rep, dp, dp1),
         out_shardings=NamedSharding(mesh, state_spec),
     )

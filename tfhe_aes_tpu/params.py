@@ -1,4 +1,4 @@
-"""Parameter sets for the TPU-native TFHE/WoPBS stack.
+"""Parameter sets for the TFHE/WoPBS stack.
 
 The production set mirrors the reference's ``PARAM_OPT``
 (/root/reference/src/client/client.rs:31-57): a WoPBS parameter context with
@@ -96,19 +96,20 @@ PARAM_OPT = ParamSet(
     cbs_level=1,
 )
 
-# TPU-native production parameters: identical SECURITY surface to PARAM_OPT
-# (same dimensions and noise distributions -> same 128-bit hardness; those
-# are what security depends on) but a coarser bootstrap-key decomposition:
+# The framework's own production parameters: identical SECURITY surface to
+# PARAM_OPT (same dimensions and noise distributions -> same 128-bit
+# hardness; those are what security depends on) but a coarser bootstrap-key
+# decomposition:
 # base 2^12 x 3 levels instead of the reference's 2^8 x 5.  The reference's
 # optimizer budgeted for tfhe-fft f64 rounding noise the exact RNS-NTT
 # pipeline does not have, which buys decomposition headroom: the analytic
 # model (utils/noise_model.py, conservative by ~0.9 bits vs measurement)
 # certifies p_fail <= 2^-64 with 12.1/11.5 sigma margins vs the required
-# 9.15 (tests/test_noise_model.py pins this).  Why it is faster: the GGSW
-# row count (k+1)*pbs_level drops 25 -> 15, which is -40% on the blind-
-# rotate MAC — the dominant VPU cost of the whole cipher (PERF.md) — and
-# -40% bootstrap-key bytes.  Digits are 12-bit, so the fused kernel feeds
-# the forward NTT as two int8 limbs (pallas_blind_rotate 'wide' path).
+# 9.15 (tests/test_noise_model.py pins this).  What it saves: the GGSW row
+# count (k+1)*pbs_level drops 25 -> 15, which is -40% of the blind-rotate
+# MAC and of the bootstrap-key bytes.  Digits are 12-bit, so the forward
+# NTT takes them as two int8 limbs (ops/ntt.ntt_fwd_wide): 2 x 15 = 30
+# input planes per step against PARAM_OPT's 25 int8 digit planes.
 PARAM_TPU = ParamSet(
     name="PARAM_TPU",
     lwe_dimension=669,

@@ -1,35 +1,50 @@
 """Native (C++) host runtime with transparent numpy fallback.
 
-Builds runtime/native.cpp with g++ on first import (cached as a .so next to
-the source); every entry point has a numpy fallback so the framework works
-without a toolchain.  See native.cpp for what lives here and why.
+Builds runtime/native.cpp with g++ on first use, as a .so next to the
+source whose name carries a hash of the source, the compiler flags and the
+machine (ISA and host name).  A binary built on another machine, or from
+other sources, therefore never matches and is never loaded: each machine
+builds its own.  Every entry point has a numpy fallback so the framework
+works without a toolchain.  See native.cpp for what lives here and why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
+import platform
 import subprocess
 
 import numpy as np
 
 _DIR = pathlib.Path(__file__).parent
-_SO = _DIR / "libtfheaes_native.so"
 _SRC = _DIR / "native.cpp"
+# Portable code for the machine's ISA (no -march=native): the host name in
+# the key already confines a binary to the machine that built it; this keeps
+# it loadable on any core of that machine.
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lib = None
 
 
-def _build() -> bool:
+def _so_path() -> pathlib.Path:
+    key = hashlib.sha256(
+        _SRC.read_bytes() + repr((_FLAGS, platform.machine(),
+                                  platform.node())).encode()).hexdigest()
+    return _DIR / f"libtfheaes_native-{key[:16]}.so"
+
+
+def _build(so: pathlib.Path) -> bool:
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-std=c++17", "-pthread", str(_SRC), "-o", str(_SO)],
-            check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
+        subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
+                       check=True, capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
         return False
+    tmp.replace(so)         # atomic: a concurrent loader never sees half
+    return True
 
 
 def get_lib():
@@ -37,21 +52,13 @@ def get_lib():
     global _lib
     if _lib is not None:
         return _lib
-    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        if not _build():
-            return None
+    so = _so_path()
+    if not so.exists() and not _build(so):
+        return None
     try:
-        lib = ctypes.CDLL(str(_SO))
-        lib.chacha20_fill_u64  # newest symbol: probe for a stale binary
-    except (OSError, AttributeError):
-        # Stale .so (e.g. built from an older native.cpp on another
-        # machine, where checkout mtimes hide the skew): rebuild once.
-        if not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(str(_SO))
-        except OSError:
-            return None
+        lib = ctypes.CDLL(str(so))
+    except OSError:
+        return None
     lib.signed_limbs_u64.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
     lib.balanced_residues_u64.argtypes = [

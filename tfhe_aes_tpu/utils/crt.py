@@ -2,7 +2,7 @@
 
 The reference's hot kernel multiplies torus polynomials with an approximate
 f64 FFT (tfhe-fft ``c64``, /root/reference/src/server/sbox/many_wopbs.rs:22,263).
-On TPU we instead do an *exact* residue-number-system NTT:
+Here the product is an *exact* residue-number-system NTT instead:
 
   * decomposition digits (int8-range) are transformed with matmul NTTs modulo
     several small primes p_k = 1 (mod 2048);
@@ -12,7 +12,7 @@ On TPU we instead do an *exact* residue-number-system NTT:
     explicit CRT and reduced mod 2^64.
 
 Primes are chosen < 2^15.5 so a*b fits a signed int32 and residues fit two
-signed 8-bit limbs — int8 is the TPU MXU's native integer operand type.
+signed 8-bit limbs, the operands of int8 x int8 -> int32 matrix products.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def ntt_primes(count: int = 6, bound: int = 46340) -> tuple[int, ...]:
     """Largest `count` primes p < bound with p = 1 (mod MAX_TWO_N).
 
     bound default 46340 = floor(2^31 ** 0.5): guarantees p*p < 2^31 so modular
-    products of residues fit a signed int32 on the TPU VPU.
+    products of residues fit a signed int32.
     """
     out = []
     p = (bound // MAX_TWO_N) * MAX_TWO_N + 1
@@ -78,10 +78,10 @@ def rotate_primes(q_bits: int, poly_n: int, base_log: int,
     (X^a - 1) twiddle:  need  M/2 > 2 * R*N * 2^(blog-1) * 2^(q-1).
 
     Primes come from a LARGER window than ntt_primes' (bound 65023): with the
-    twiddle product clamped to |prod| <= p/2 in the kernel, every int32 bound
-    holds for p < 2^16 (see ops/pallas_blind_rotate.py bound comments), and
-    fewer, bigger primes mean proportionally fewer MXU dots / Barrett chains /
-    BSK bytes.  At PARAM_OPT (q' = 48, ops/keys.make_rotate_plan) this is
+    twiddle product reduced to |prod| <= p/2 before the next multiply, every
+    int32 bound holds for p < 2^16 (ntt.barrett_rotate_delta), and fewer,
+    bigger primes mean proportionally fewer NTT dots / Barrett chains / BSK
+    bytes.  At PARAM_OPT (q' = 48, ops/keys.make_rotate_plan) this is
     5 primes vs the mod-2^64 domain's 6: log2 M = 79.2 vs the required
     68.64.  (4 primes would cover only q' <= 40, whose staging noise fails
     the GGSW budget — measured dead end, PERF.md round 3.)

@@ -1,4 +1,4 @@
-"""Analytic noise model: closed-form variances for the TPU WoPBS pipeline.
+"""Analytic noise model: closed-form variances for the device WoPBS pipeline.
 
 Certifies p_fail <= 2^-64 for the MODIFIED scheme this framework ships —
 the reference's parameters carry optimizer provenance only for the classic

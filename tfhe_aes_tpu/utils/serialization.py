@@ -30,10 +30,10 @@ def default_cache_dir() -> pathlib.Path:
         "TFHE_AES_TPU_CACHE", os.path.expanduser("~/.cache/tfhe_aes_tpu")))
 
 
-# Bump when the packed-key layout changes incompatibly (v4: BSK staged in
-# the mod-2^48 rotate domain over the 5-big-prime basis with mask-rounding
-# cancellation, ops/keys.pack_bsk / make_rotate_plan).
-KEY_FORMAT = 4
+# Bump when the packed-key layout changes incompatibly (v5: merged BSK with
+# one row slice per LWE coefficient and no step padding,
+# ops/keys.bsk_residues_to_device).
+KEY_FORMAT = 5
 
 
 def cache_path(params: ParamSet, seed) -> pathlib.Path:
@@ -79,38 +79,19 @@ def save_keys(path: pathlib.Path, sk: SecretKeys, dkeys: DeviceKeys, *,
 
 def _bsk_limbs_to_residues(dkeys: DeviceKeys) -> np.ndarray:
     """Invert keys.bsk_residues_to_device for serialization."""
-    merged = np.asarray(dkeys.bsk_limbs)       # [n_pad, R*2(k+1), Pr*N]
+    merged = np.asarray(dkeys.bsk_limbs)       # [n, R*2(k+1), Pr*N]
     p = dkeys.params
     kp1 = p.glwe_dimension + 1
     n = p.polynomial_size
     pcount = dkeys.rplan.n_primes
     rows = merged.shape[1]
-    limbs = (merged[:p.lwe_dimension]          # strip the step padding
-             .reshape(p.lwe_dimension, rows, pcount, n)
+    limbs = (merged.reshape(p.lwe_dimension, rows, pcount, n)
              .transpose(0, 2, 1, 3)            # [n, P, R*2(k+1), N]
              .astype(np.int16))
     limbs = limbs.reshape(p.lwe_dimension, pcount, rows // (2 * kp1),
                           2 * kp1, n)
     return np.ascontiguousarray(
         limbs[..., :kp1, :] + (limbs[..., kp1:, :] << 8))
-
-
-def _bsk_to_device_layout(bsk: np.ndarray) -> np.ndarray:
-    """Normalize a serialized BSK to the merged device layout.
-
-    Accepts the current merged [n_pad, R*2(k+1), P*N] layout (returned
-    as-is) or the legacy v4 per-prime [n, P, R*2(k+1), N] layout, which is
-    merged + step-padded on the fly (one host transpose of the ~0.5 GB
-    array, a few seconds — then re-saved by callers that want warm loads).
-    """
-    from ..ops.keys import pad_bsk_steps
-    if bsk.ndim == 3:
-        return pad_bsk_steps(np.asarray(bsk))
-    n_lwe, pcount, rows, n = bsk.shape
-    merged = np.ascontiguousarray(
-        np.asarray(bsk).transpose(0, 2, 1, 3)).reshape(
-            n_lwe, rows, pcount * n)
-    return pad_bsk_steps(merged)
 
 
 def load_keys(path: pathlib.Path) -> tuple[SecretKeys, DeviceKeys]:
@@ -127,11 +108,14 @@ def load_keys(path: pathlib.Path) -> tuple[SecretKeys, DeviceKeys]:
                           tuple(int(p) for p in z["rprimes"]),
                           q_bits=int(z["q_bits"]))
     if "bsk_limbs" in z.files:                # device layout, zero math
-        # one zip read (~3 s / 514 MB); legacy per-prime layouts are merged
-        bsk_limbs = _bsk_to_device_layout(z["bsk_limbs"])
+        bsk_limbs = np.asarray(z["bsk_limbs"])
     else:                                     # interchange: int16 residues
         from ..ops.keys import bsk_residues_to_device
         bsk_limbs = bsk_residues_to_device(np.asarray(z["bsk_ntt"]))
+    if bsk_limbs.shape[0] != params.lwe_dimension:
+        raise ValueError(
+            f"stale key cache {path}: BSK has {bsk_limbs.shape[0]} rows, "
+            f"{params.name} needs {params.lwe_dimension}; regenerate")
     dkeys = DeviceKeys(
         params=params, plan=plan, rplan=rplan,
         bsk_limbs=bsk_limbs,
@@ -141,10 +125,6 @@ def load_keys(path: pathlib.Path) -> tuple[SecretKeys, DeviceKeys]:
         inv_crt_limbs=plan.inv_crt_limbs,
         rfwd_limbs=rplan.fwd_limbs,
         rinv_crt_limbs=rplan.inv_crt_limbs,
-        fwd_full=ntt.fwd_cat_for(rplan, params.pbs_base_log),
-        inv_crt_full=ntt.inv_crt_full_host(rplan),
         rot_table=ntt.rot_table_merged(rplan),
-        vp_fwd3=ntt.fwd_cat3_host(plan),
-        vp_inv_full=ntt.inv_crt_full_host(plan),
     )
     return sk, dkeys

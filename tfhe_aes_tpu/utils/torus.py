@@ -29,7 +29,7 @@ def gadget_decompose(v: np.ndarray, base_log: int, levels: int) -> np.ndarray:
     closest-representable decomposition used by the reference's tfhe-rs calls
     (SURVEY.md section 2b) up to the choice of balanced digit set; any signed
     digit set of this magnitude yields the same noise growth.  The digit range
-    is chosen so base 2^8 digits always fit int8 (MXU operand type on TPU).
+    is chosen so base 2^8 digits always fit int8 (the matmul operand type).
     """
     v = np.asarray(v, dtype=np.uint64)
     B = 1 << base_log
@@ -62,7 +62,7 @@ def signed_limbs(v: np.ndarray, n_limbs: int, limb_bits: int = 8) -> np.ndarray:
     Returns int64 limbs L[..., i], i = 0 least significant, each in
     [-2^(limb_bits-1), 2^(limb_bits-1) - 1], with
         sum_i L[..., i] << (limb_bits*i) == v  (mod 2^(limb_bits*n_limbs)).
-    Used to stage u64 key material / mod-p twiddles as int8 MXU operands.
+    Used to stage u64 key material / mod-p twiddles as int8 matmul operands.
     """
     v = np.asarray(v, dtype=np.uint64)
     B = 1 << limb_bits
